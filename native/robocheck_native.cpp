@@ -1,7 +1,7 @@
 // Native runtime components: fast dataset IO and a double-precision CPU
 // collision oracle.
 //
-// Role in the framework: the TPU compute path is JAX/XLA/Pallas; this library
+// Role in the framework: the device compute path is JAX/XLA/Pallas; this library
 // covers the host-side work the reference implements in C++ — text-format
 // dataset parsing (reference: Utils_rai.cu:11-109 readConfiguration*,
 // :139-320 loadOBJFile) and the FCL-replacement CPU oracle used for tagging
@@ -10,9 +10,9 @@
 // rigid transform -> mesh AABB gate -> per-triangle AABB pair prefilter ->
 // exact (tolerance-free) Moller interval tri-tri test with a true coplanar
 // 2-D path. It intentionally does NOT share the f32 TOL-band semantics of the
-// TPU kernels so differential tests catch bugs rather than inherit them.
+// device kernels so differential tests catch bugs rather than inherit them.
 //
-// Exposed as a C ABI consumed through ctypes (robocheck_tpu/runtime/native.py);
+// Exposed as a C ABI consumed through ctypes (robocheck/runtime/native.py);
 // pure-Python fallbacks exist for every entry point.
 
 #include <algorithm>

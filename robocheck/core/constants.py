@@ -1,0 +1,28 @@
+"""Numeric and capacity constants for the collision pipeline.
+
+The tolerance semantics replicate the reference CUDA implementation
+(`/root/reference/narrow-phase/narrow-phase.hu:14` TOL=1e-6 and the relative
+`isclose` of `narrow-phase.cu:24-35`) so that verdicts agree bit-for-bit with
+the tagged golden datasets.
+
+Capacity constants mirror the reference's constant-memory sizing
+(`Utils_rai.h:98-99`: 792 vertices / 1008 triangles for the alpha-puzzle pair),
+but here they are *defaults*, not hard limits: the XLA pipeline pads triangle
+counts up to a multiple of the lane width (128) and masks the padding with
+degenerate triangles, because 1008 does not tile onto (8,128) vector registers.
+"""
+
+# Relative tolerance used by isclose / the ±TOL no-overlap band
+# (reference: narrow-phase.hu:14).
+TOL = 1e-6
+
+# Alpha-puzzle mesh sizes (reference: Utils_rai.h:98-99).
+ALPHA_NUM_VERTICES = 792
+ALPHA_NUM_TRIANGLES = 1008
+
+# Lane width — the last dim of every tiled array is padded to this.
+LANE = 128
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m

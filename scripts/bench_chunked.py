@@ -1,13 +1,12 @@
 #!/usr/bin/env python3
 """Oversized-mesh chunked-checker benchmark: compaction on vs off.
 
-An 81,920-triangle icosphere obstacle (10 Morton chunks, far past the fused
-kernel's VMEM budget) against the 80-triangle icosphere robot, comparing the
+An 81,920-triangle icosphere obstacle (Morton chunks, far past the fused
+kernel's gate width) against the 80-triangle icosphere robot, comparing the
 host-compacted driver (per-chunk XLA broad phase before dispatch) against
 plain per-pair dispatch whose culling happens at the kernel's own in-kernel
-broad phase. Measured verdict: on the tethered link the in-kernel broad
-phase wins ~2x (see `kernels/chunked.py` docstring) — this benchmark is the
-receipt, and guards against regressions in either path.
+broad phase. Not yet measured on the GPU; the two paths must give the same
+verdicts.
 
     python scripts/bench_chunked.py [--n 8192]
 """
@@ -30,18 +29,18 @@ def main() -> int:
                          "tri pairs per configuration)")
     args = ap.parse_args()
 
-    from robocheck_tpu.runtime.cache import enable_compilation_cache
+    from robocheck.runtime.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
     import jax
     import numpy as np
 
-    from robocheck_tpu.kernels.chunked import (
+    from robocheck.kernels.chunked import (
         ChunkedMegaKernelChecker,
         make_checker,
     )
-    from robocheck_tpu.models.shapes import icosphere
+    from robocheck.models.shapes import icosphere
 
     if args.big:
         robot = icosphere(5, radius=0.3, name="robot-20k")  # 20,480 tris
@@ -55,11 +54,13 @@ def main() -> int:
     confs[:, 0:3] = rng.uniform(-4, 4, (args.n, 3))
     confs[:, 3:6] = rng.uniform(-np.pi, np.pi, (args.n, 3))
 
-    checker = make_checker(robot, obstacle,
-                           interpret=jax.default_backend() != "tpu")
+    checker = make_checker(robot, obstacle)
     assert isinstance(checker, ChunkedMegaKernelChecker), type(checker)
     print(json.dumps({"chunk_pairs": checker.num_chunk_pairs,
-                      "obs_tris": obstacle.num_triangles}), flush=True)
+                      "obs_tris": obstacle.num_triangles,
+                      "device": {"platform": jax.devices()[0].platform,
+                                 "kind": jax.devices()[0].device_kind,
+                                 "count": len(jax.devices())}}), flush=True)
 
     results = {}
     for compact in (True, False):

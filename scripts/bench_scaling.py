@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Scaling-efficiency benchmark: checks/s at 1, 2, 4, ... devices.
 
-On real multi-chip hardware this measures ICI-sharded throughput directly;
-on a single-chip or CPU-only machine, pass --cpu-mesh to run the identical
+On several GPUs this measures batch-sharded throughput directly; on a
+single-card or CPU-only machine, pass --cpu-mesh to run the identical
 SPMD program over virtual CPU devices (validates the sharding path and
 reports relative scaling of the program structure, not absolute speed).
 
@@ -28,7 +28,7 @@ def main() -> int:
     ap.add_argument("--confs-per-device", type=int, default=4096)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--clearance", action="store_true",
-                    help="also scale the TPU clearance engine's exact pair "
+                    help="also scale the clearance engine's exact pair "
                          "batches (the continuous certifier's hot phase)")
     ap.add_argument("--clearance-only", action="store_true",
                     help="skip the checker legs (CPU-mesh compiles of the "
@@ -49,23 +49,21 @@ def main() -> int:
 
     import numpy as np
 
-    from robocheck_tpu.io import assets
-    from robocheck_tpu.io.conf import read_conf_file
-    from robocheck_tpu.io.obj import load_obj
-    from robocheck_tpu.parallel.sharding import ShardedChecker, make_mesh
+    from robocheck.io import assets
+    from robocheck.io.conf import read_conf_file
+    from robocheck.io.obj import load_obj
+    from robocheck.parallel.sharding import ShardedChecker, make_mesh
 
     robot = load_obj(assets.alpha_robot_path())
     obstacle = load_obj(assets.alpha_obstacle_path())
     ds = read_conf_file(assets.dataset_path(args.dataset))
-    interpret = jax.default_backend() != "tpu"
 
     n_dev_total = len(jax.devices())
     sizes = [n for n in (1, 2, 4, 8, 16, 32) if n <= n_dev_total]
     results = {}
     base = None
     for n in ([] if args.clearance_only else sizes):
-        checker = ShardedChecker(robot, obstacle, mesh=make_mesh(n),
-                                 interpret=interpret)
+        checker = ShardedChecker(robot, obstacle, mesh=make_mesh(n))
         want = n * args.confs_per_device
         confs = np.resize(ds.confs, (want, 6)).astype(np.float32)
         checker.check_valid(confs)  # compile + warm
@@ -88,13 +86,13 @@ def main() -> int:
         # Clearance-engine scaling: the exact (config, block) pair batches
         # are the certificate's dominant device phase; shard_map splits
         # them over the mesh's batch axis (planner/clearance.py).
-        from robocheck_tpu.planner.ccd import subdivide_mesh
-        from robocheck_tpu.planner.clearance import TpuClearanceEngine
+        from robocheck.planner.ccd import subdivide_mesh
+        from robocheck.planner.clearance import ClearanceEngine
 
         # Workload sized for the virtual-CPU tier too: refine-2 keeps a
-        # per-device pair chunk meaningful without hours of host VPU
-        # emulation (on real chips pass a bigger refine via --help... the
-        # absolute numbers here only support the RELATIVE scaling claim).
+        # per-device pair chunk meaningful without hours of CPU emulation
+        # (the absolute numbers here only support the RELATIVE scaling
+        # claim).
         rob2 = subdivide_mesh(robot, 2)
         rng = np.random.default_rng(5)
         cl = rng.uniform(-np.pi, np.pi, (64, 6)).astype(np.float32)
@@ -103,8 +101,8 @@ def main() -> int:
         cl[:, 0:3] = center + rng.uniform(-0.5, 0.5, (64, 3)) * ext
         cbase = None
         for n in sorted({1, n_dev_total}):
-            eng = TpuClearanceEngine(rob2.vertices, obstacle,
-                                     mesh=make_mesh(n) if n > 1 else None)
+            eng = ClearanceEngine(rob2.vertices, obstacle,
+                                  mesh=make_mesh(n) if n > 1 else None)
             eng.min_distances(cl)  # compile + warm
             best = float("inf")
             for _ in range(args.runs):
@@ -123,7 +121,9 @@ def main() -> int:
 
     print(json.dumps({"devices": results,
                       "clearance_devices": clear_results or None,
-                      "backend": jax.default_backend(),
+                      "device": {"platform": jax.devices()[0].platform,
+                                 "kind": jax.devices()[0].device_kind,
+                                 "count": len(jax.devices())},
                       "dataset": args.dataset}))
     return 0
 

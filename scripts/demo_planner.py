@@ -16,9 +16,9 @@ sys.path.insert(0, str(REPO))
 import numpy as np  # noqa: E402
 
 
-def wall_demo(interpret: bool, ccd: bool = False) -> int:
-    from robocheck_tpu.models.shapes import box, icosphere
-    from robocheck_tpu.planner import PRMConfig, TrajOptConfig, plan_and_smooth
+def wall_demo(ccd: bool = False) -> int:
+    from robocheck.models.shapes import box, icosphere
+    from robocheck.planner import PRMConfig, TrajOptConfig, plan_and_smooth
 
     robot = icosphere(1, radius=0.3, name="robot")
     obstacle = box(extent=(0.5, 3.0, 3.0), name="wall")
@@ -33,7 +33,6 @@ def wall_demo(interpret: bool, ccd: bool = False) -> int:
         opt_config=TrajOptConfig(num_waypoints=24, iters_per_round=150,
                                  max_rounds=4, margin=0.25,
                                  swept_certify=ccd),
-        interpret=interpret,
     )
     dt = time.perf_counter() - t0
     if res is None:
@@ -56,21 +55,21 @@ def wall_demo(interpret: bool, ccd: bool = False) -> int:
     return 0 if res.certified else 1
 
 
-def alpha_demo(interpret: bool, plan: bool = False,
+def alpha_demo(plan: bool = False,
                samples: int = 4096, rrt: bool = False,
                ccd: bool = False, smooth: bool = False) -> int:
-    from robocheck_tpu.io import assets
-    from robocheck_tpu.io.obj import load_obj
-    from robocheck_tpu.io.parasol import read_query
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-    from robocheck_tpu.planner.trajopt import densify
+    from robocheck.io import assets
+    from robocheck.io.obj import load_obj
+    from robocheck.io.parasol import read_query
+    from robocheck.kernels.megakernel import MegaKernelChecker
+    from robocheck.planner.trajopt import densify
 
     robot = load_obj(assets.alpha_robot_path())
     obstacle = load_obj(assets.alpha_obstacle_path())
     query = read_query(assets.find_asset("models/alpha1.0/alpha.query"))
     print(f"alpha query: start={query[0]}, goal={query[1]}")
 
-    checker = MegaKernelChecker(robot, obstacle, interpret=interpret)
+    checker = MegaKernelChecker(robot, obstacle)
     valid, _ = checker.check_valid(query)
     print(f"start valid: {bool(valid[0])}, goal valid: {bool(valid[1])}")
 
@@ -87,7 +86,7 @@ def alpha_demo(interpret: bool, plan: bool = False,
         # clearance well below any affordable floor — this REPORTS that
         # measured gap honestly instead of letting a discrete densify
         # masquerade as a certificate (see README's alpha section).
-        from robocheck_tpu.planner.ccd import SweptCertifier
+        from robocheck.planner.ccd import SweptCertifier
 
         for refine, res_ in ((1, 128), (2, 192)):
             cert = SweptCertifier(robot, obstacle, resolution=res_,
@@ -99,10 +98,10 @@ def alpha_demo(interpret: bool, plan: bool = False,
     if rrt:
         # Bidirectional batched RRT-Connect with Gaussian boundary
         # sampling — the sampling family built for narrow passages, every
-        # extension validated in large batches on the TPU.
+        # extension validated in large batches on the device.
         import time as _time
 
-        from robocheck_tpu.planner.rrt import RRTConfig, RRTConnectPlanner
+        from robocheck.planner.rrt import RRTConfig, RRTConnectPlanner
 
         ext0 = float((robot.aabb[3:] - robot.aabb[:3]).min())
         planner = RRTConnectPlanner(
@@ -139,12 +138,11 @@ def alpha_demo(interpret: bool, plan: bool = False,
             # Continuous certification, multi-resolution exact mode: cheap
             # surface-sampling levels certify everything their covering
             # radius allows; only the razor segments escalate to refine-7
-            # (16.5M-triangle) sampling. Takes ~15 min; produced the
-            # repo's ALPHA_CCD.json certificate.
-            from robocheck_tpu.planner.ccd import certify_multires
+            # (16.5M-triangle) sampling. Produces the
+            # alpha certificate (scripts/certify_alpha.py).
+            from robocheck.planner.ccd import certify_multires
 
-            print("continuous certification (multi-resolution exact; "
-                  "~15 min)...")
+            print("continuous certification (multi-resolution exact)...")
             t0 = _time.perf_counter()
             sw = certify_multires(robot, obstacle, res.path, checker,
                                   levels=((2, 8), (4, 10), (6, 12),
@@ -160,8 +158,8 @@ def alpha_demo(interpret: bool, plan: bool = False,
             # certified RRT path under the SDF proxy; the exact checker
             # re-certifies at the same fine step (guarantees from the
             # checker, never the proxy).
-            from robocheck_tpu.planner import SQPConfig, SQPOptimizer
-            from robocheck_tpu.planner.trajopt import resample
+            from robocheck.planner import SQPConfig, SQPOptimizer
+            from robocheck.planner.trajopt import resample
 
             t0 = _time.perf_counter()
             opt = SQPOptimizer(
@@ -191,10 +189,10 @@ def alpha_demo(interpret: bool, plan: bool = False,
     # if a path is found. The alpha 1.0 puzzle's narrow passage needs a
     # coordinated rotate-while-translate; uniform PRM at this sample count
     # is expected to get close but not through — the point is to measure
-    # and report how far the TPU-batched planner gets.
+    # and report how far the batched planner gets.
     import time as _time
 
-    from robocheck_tpu.planner import PRMConfig, PRMPlanner
+    from robocheck.planner import PRMConfig, PRMPlanner
 
     prm = PRMPlanner(robot, obstacle,
                      PRMConfig(num_samples=samples, k_neighbors=12,
@@ -231,13 +229,13 @@ def alpha_demo(interpret: bool, plan: bool = False,
             prm_certified = False
             break
     print("smoothing with SQP...")
-    from robocheck_tpu.planner import SQPConfig, SQPOptimizer
-    from robocheck_tpu.planner.trajopt import resample
+    from robocheck.planner import SQPConfig, SQPOptimizer
+    from robocheck.planner.trajopt import resample
 
     opt = SQPOptimizer(robot, obstacle,
                        SQPConfig(num_waypoints=max(32, len(res.path)),
                                  max_outer=20),
-                       checker=checker, interpret=interpret)
+                       checker=checker)
     init = resample(res.path, opt.cfg.num_waypoints, opt.cfg.rot_scale)
     sres = opt.plan(query[0], query[1], init=init)
     print(f"SQP: certified={sres.certified} after {sres.outer_iters} "
@@ -262,16 +260,13 @@ def main() -> int:
     ap.add_argument("--smooth", action="store_true",
                     help="with --alpha --rrt: SQP-smooth + re-certify")
     args = ap.parse_args()
-    import jax
-
-    from robocheck_tpu.runtime.cache import enable_compilation_cache
+    from robocheck.runtime.cache import enable_compilation_cache
 
     enable_compilation_cache()
-    interpret = jax.default_backend() != "tpu"
     if args.alpha:
-        return alpha_demo(interpret, plan=args.plan, samples=args.samples,
+        return alpha_demo(plan=args.plan, samples=args.samples,
                           rrt=args.rrt, ccd=args.ccd, smooth=args.smooth)
-    return wall_demo(interpret, ccd=args.ccd)
+    return wall_demo(ccd=args.ccd)
 
 
 if __name__ == "__main__":

@@ -30,11 +30,11 @@ def main() -> int:
     ap.add_argument("--out", default=str(REPO / "data"))
     args = ap.parse_args()
 
-    from robocheck_tpu.io import assets
-    from robocheck_tpu.io.conf import write_conf_file
-    from robocheck_tpu.io.datagen import alpha_bot_configurations
-    from robocheck_tpu.io.obj import load_obj
-    from robocheck_tpu.oracle import check_configs
+    from robocheck.io import assets
+    from robocheck.io.conf import write_conf_file
+    from robocheck.io.datagen import alpha_bot_configurations, dataset_seed
+    from robocheck.io.obj import load_obj
+    from robocheck.oracle import check_configs
 
     robot = load_obj(assets.alpha_robot_path())
     obstacle = load_obj(assets.alpha_obstacle_path())
@@ -50,13 +50,13 @@ def main() -> int:
             t0 = time.time()
             confs = alpha_bot_configurations(
                 robot, size, hard=(kind == "hard"),
-                seed=args.seed + (0 if kind == "easy" else 1) * 7919 + size,
+                seed=dataset_seed(kind, size, args.seed),
             )
             # Chunked + checkpointed tagging: an interrupted oracle sweep
             # resumes where it left off (runtime/checkpoint.py; the durable
             # analog of the reference persisting FCL verdicts in the files
             # themselves, generate-tests.cu:33-38).
-            from robocheck_tpu.runtime import checkpoint
+            from robocheck.runtime import checkpoint
 
             ckpt = out.with_suffix(".tagging.ckpt.npz")
             valid = np.zeros((size,), dtype=bool)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Capture an xprof/Perfetto trace of the mega-kernel on a dataset
-(replaces the reference's checked-in Nsight Compute recipe,
+"""Capture a jax.profiler (Perfetto) trace of the fused kernel on a dataset
+on the GPU (replaces the reference's checked-in Nsight Compute recipe,
 `rai_build.yml:43`).
 
-    python scripts/profile_kernel.py [--dataset hard10k] [--out /tmp/rc_trace]
+    python scripts/profile_kernel.py [--dataset hard10k] [--out DIR]
 
 Inspect with XProf/TensorBoard or Perfetto (trace.json.gz inside the
 plugins/profile directory).
@@ -20,24 +20,23 @@ sys.path.insert(0, str(REPO))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="hard10k")
-    ap.add_argument("--out", default="/tmp/rc_trace")
+    ap.add_argument("--out", default=str(REPO / "chiprun_out" / "trace"))
     ap.add_argument("--runs", type=int, default=3)
     args = ap.parse_args()
 
-    import jax
+    from robocheck.io import assets
+    from robocheck.io.conf import read_conf_file
+    from robocheck.io.obj import load_obj
+    from robocheck.kernels.megakernel import MegaKernelChecker
+    from robocheck.profiling.timers import trace
+    from robocheck.runtime.device import require_gpu
 
-    from robocheck_tpu.io import assets
-    from robocheck_tpu.io.conf import read_conf_file
-    from robocheck_tpu.io.obj import load_obj
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-    from robocheck_tpu.profiling.timers import trace
+    require_gpu()
 
     robot = load_obj(assets.alpha_robot_path())
     obstacle = load_obj(assets.alpha_obstacle_path())
     ds = read_conf_file(assets.dataset_path(args.dataset))
-    checker = MegaKernelChecker(
-        robot, obstacle, interpret=jax.default_backend() != "tpu"
-    )
+    checker = MegaKernelChecker(robot, obstacle)
     checker.check_valid(ds.confs)  # compile + warm (fixed-chunk shape)
 
     with trace(args.out):

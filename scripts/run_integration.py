@@ -30,10 +30,10 @@ def main() -> int:
     import jax
     import numpy as np
 
-    from robocheck_tpu.io import assets
-    from robocheck_tpu.io.conf import read_conf_file
-    from robocheck_tpu.io.obj import load_obj
-    from robocheck_tpu.profiling.counters import CheckStats, verdict_diff
+    from robocheck.io import assets
+    from robocheck.io.conf import read_conf_file
+    from robocheck.io.obj import load_obj
+    from robocheck.profiling.counters import CheckStats, verdict_diff
 
     robot = load_obj(assets.alpha_robot_path())
     obstacle = load_obj(assets.alpha_obstacle_path())
@@ -52,15 +52,14 @@ def main() -> int:
         )
         golden = None
     if args.oracle or golden is None:
-        from robocheck_tpu.oracle import check_configs
+        from robocheck.oracle import check_configs
 
         t0 = time.perf_counter()
         golden = check_configs(robot, obstacle, ds.confs)
         print(f"CPU oracle: {time.perf_counter() - t0:.2f}s")
 
-    interpret = jax.default_backend() != "tpu"
     if args.xla:
-        from robocheck_tpu.ops.pipeline import CollisionWorld
+        from robocheck.ops.pipeline import CollisionWorld
 
         world = CollisionWorld(robot, obstacle)
         t0 = time.perf_counter()
@@ -70,9 +69,9 @@ def main() -> int:
         num_pairs = np.zeros(len(valid), np.int32)
         broad_hit = np.ones_like(valid)
     else:
-        from robocheck_tpu.kernels.megakernel import MegaKernelChecker
+        from robocheck.kernels.megakernel import MegaKernelChecker
 
-        checker = MegaKernelChecker(robot, obstacle, interpret=interpret)
+        checker = MegaKernelChecker(robot, obstacle)
         checker.check(ds.confs[: min(64, len(ds.confs))])  # compile
         t0 = time.perf_counter()
         valid, coplanar, num_pairs, broad_hit = checker.check(ds.confs)

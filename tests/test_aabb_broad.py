@@ -4,8 +4,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from robocheck_tpu.ops import aabb as ab
-from robocheck_tpu.ops.pipeline import broad_phase
+from robocheck.ops import aabb as ab
+from robocheck.ops.pipeline import broad_phase
 
 
 def test_vertices_aabb_exact():

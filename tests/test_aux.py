@@ -3,13 +3,13 @@ counters, checkpointing."""
 import numpy as np
 import pytest
 
-from robocheck_tpu.io import assets
-from robocheck_tpu.io.byu import byu_to_obj, load_byu
-from robocheck_tpu.io.obj import load_obj
-from robocheck_tpu.io.parasol import read_env, read_query
-from robocheck_tpu.profiling.counters import CheckStats, verdict_diff
-from robocheck_tpu.profiling.timers import StageTimer, benchmark
-from robocheck_tpu.runtime import checkpoint
+from robocheck.io import assets
+from robocheck.io.byu import byu_to_obj, load_byu
+from robocheck.io.obj import load_obj
+from robocheck.io.parasol import read_env, read_query
+from robocheck.profiling.counters import CheckStats, verdict_diff
+from robocheck.profiling.timers import StageTimer, benchmark
+from robocheck.runtime import checkpoint
 
 
 class TestParasol:
@@ -121,3 +121,31 @@ class TestCheckpoint:
         back, meta = checkpoint.load(p)
         np.testing.assert_array_equal(back["traj"], arrays["traj"])
         assert meta == {"round": 3}
+
+
+@pytest.mark.parametrize("env_dir", [None, "given"])
+def test_compile_cache_location(monkeypatch, tmp_path, env_dir):
+    # JAX_COMPILATION_CACHE_DIR wins and nothing else is set; without it
+    # the cache lives at a fixed path inside the checkout.
+    import os
+
+    import jax
+
+    from robocheck.runtime import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache._DEFAULT_DIR == os.path.join(repo, ".jax_cache")
+        # Enable it on a stand-in path, keeping the checkout clean.
+        monkeypatch.setattr(cache, "_DEFAULT_DIR", str(tmp_path / "c"))
+        try:
+            assert cache.enable_compilation_cache() == str(tmp_path / "c")
+            assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "e"))
+        assert cache.enable_compilation_cache() == str(tmp_path / "e")
+        assert jax.config.jax_compilation_cache_dir == before

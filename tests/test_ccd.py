@@ -10,10 +10,10 @@ floor is honest (near-floor clearances yield 'unproven', not lies).
 import numpy as np
 import pytest
 
-from robocheck_tpu.core.types import Mesh
-from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-from robocheck_tpu.models.shapes import box, icosphere
-from robocheck_tpu.planner.ccd import (
+from robocheck.core.types import Mesh
+from robocheck.kernels.megakernel import MegaKernelChecker
+from robocheck.models.shapes import box, icosphere
+from robocheck.planner.ccd import (
     SweptCertifier,
     covering_radius,
     subdivide_mesh,
@@ -24,7 +24,7 @@ from robocheck_tpu.planner.ccd import (
 def wall_world():
     robot = box(extent=(0.4, 0.4, 0.4), name="robot")
     wall = box(extent=(0.1, 6.0, 6.0), name="wall")
-    checker = MegaKernelChecker(robot, wall, interpret=True)
+    checker = MegaKernelChecker(robot, wall)
     cert = SweptCertifier(robot, wall, resolution=64)
     return robot, wall, checker, cert
 
@@ -87,7 +87,7 @@ def test_near_floor_clearance_is_unproven_not_lied_about(wall_world):
 def test_trajopt_swept_certificate():
     # End-to-end: the optimizer's certificate upgrades to continuous when
     # swept_certify is on (small scene, interpret mode).
-    from robocheck_tpu.planner.trajopt import TrajectoryOptimizer, TrajOptConfig
+    from robocheck.planner.trajopt import TrajectoryOptimizer, TrajOptConfig
 
     robot = box(extent=(0.3, 0.3, 0.3), name="robot")
     obstacle = icosphere(1, radius=0.6, name="ball")
@@ -95,7 +95,6 @@ def test_trajopt_swept_certificate():
         robot, obstacle,
         TrajOptConfig(num_waypoints=12, iters_per_round=60, max_rounds=3,
                       grid_resolution=32, swept_certify=True, seed=3),
-        interpret=True,
     )
     start = np.array([-2.0, 0, 0, 0, 0, 0], np.float32)
     goal = np.array([2.0, 0, 0, 0, 0, 0], np.float32)
@@ -111,8 +110,8 @@ def test_exact_mode_and_multires(wall_world):
     # Exact-distance clearance (native BVH): floor = r_cov alone, so a path
     # the grid-based certifier cannot decide (clearance below e_g + r_cov)
     # certifies under multi-resolution escalation.
-    from robocheck_tpu.planner.ccd import certify_multires
-    from robocheck_tpu.runtime import native
+    from robocheck.planner.ccd import certify_multires
+    from robocheck.runtime import native
 
     if not native.available():
         pytest.skip("native library not built")

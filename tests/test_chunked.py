@@ -8,15 +8,15 @@ through the same API.
 import numpy as np
 import pytest
 
-from robocheck_tpu.kernels.chunked import (
+from robocheck.kernels.chunked import (
     ChunkedMegaKernelChecker,
     MAX_OBS_TRIS,
     make_checker,
     split_mesh,
 )
-from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-from robocheck_tpu.models.shapes import icosphere, triangle_soup
-from robocheck_tpu.oracle import cpu_oracle
+from robocheck.kernels.megakernel import MegaKernelChecker
+from robocheck.models.shapes import icosphere, triangle_soup
+from robocheck.oracle import cpu_oracle
 
 
 @pytest.fixture(scope="module")
@@ -48,9 +48,9 @@ def test_split_mesh_partitions_triangles(worlds):
 
 def test_chunked_matches_unchunked_and_oracle(worlds, confs):
     robot, obstacle = worlds
-    plain = MegaKernelChecker(robot, obstacle, interpret=True)
+    plain = MegaKernelChecker(robot, obstacle)
     chunked = ChunkedMegaKernelChecker(
-        robot, obstacle, interpret=True, max_rob_tris=64, max_obs_tris=128
+        robot, obstacle, max_rob_tris=64, max_obs_tris=128
     )
     assert chunked.num_chunk_pairs == 6  # 2 robot x 3 obstacle chunks
 
@@ -74,36 +74,33 @@ def test_chunked_matches_unchunked_and_oracle(worlds, confs):
 
 def test_make_checker_dispatch(worlds, rng):
     robot, obstacle = worlds
-    small = make_checker(robot, obstacle, interpret=True)
+    small = make_checker(robot, obstacle)
     assert isinstance(small, MegaKernelChecker)
 
-    # Past the fused kernel's raised (48 MB compiler / 28 MB table) budget:
-    # ~58k obstacle triangles of table is ~30 MB.
+    # Past the fused kernel's gate width (MAX_OBS_TRIS triangles).
     n_big = 58_000
     big_obs = triangle_soup(rng, n_big, extent=2.0)
-    big = make_checker(robot, big_obs, interpret=True)
+    big = make_checker(robot, big_obs)
     assert isinstance(big, ChunkedMegaKernelChecker)
     assert big.num_chunk_pairs == -(-n_big // MAX_OBS_TRIS)
 
 
-@pytest.mark.tpu
+@pytest.mark.gpu
 def test_chunked_oversized_on_hardware(worlds, rng):
-    # Real-TPU twin of the dispatch test: a 58k-triangle obstacle (~30 MB of
-    # mesh tables, above the default 16 MB scoped-VMEM limit) must compile
-    # under the kernel's raised vmem_limit_bytes and match the oracle.
-    # Run with ROBOCHECK_TEST_TPU=1 -m tpu.
-    import jax
-
-    if jax.default_backend() != "tpu":
-        pytest.skip("real TPU required")
+    # Compiled twin of the dispatch test: a 58k-triangle obstacle, past the
+    # fused kernel's gate width, runs through make_checker's Morton chunks
+    # on the card and matches the oracle.
     robot, _ = worlds
     big_obs = triangle_soup(rng, 58_000, extent=2.0)
     checker = make_checker(robot, big_obs)
     assert isinstance(checker, ChunkedMegaKernelChecker)
     confs = rng.uniform(-2.5, 2.5, size=(64, 6)).astype(np.float32)
     v, _ = checker.check_valid(confs, chunk=64)
-    gt = cpu_oracle.check_configs(robot, big_obs, confs)
-    np.testing.assert_array_equal(v, gt)
+    # The f64 oracle: native when built (diff-tested against the numpy
+    # one in tests/test_native.py), which keeps 58k triangles quick.
+    from robocheck.oracle import check_configs
+
+    np.testing.assert_array_equal(v, check_configs(robot, big_obs, confs))
 
 
 def test_chunked_oversized_end_to_end(worlds, rng):
@@ -112,7 +109,7 @@ def test_chunked_oversized_end_to_end(worlds, rng):
     # mode fast; the factory-threshold routing is covered above.)
     robot, _ = worlds
     big_obs = triangle_soup(rng, 1000, extent=2.0)
-    checker = ChunkedMegaKernelChecker(robot, big_obs, interpret=True,
+    checker = ChunkedMegaKernelChecker(robot, big_obs,
                                        max_obs_tris=256)
     assert checker.num_chunk_pairs == 4
     confs = rng.uniform(-2, 2, size=(8, 6)).astype(np.float32)
@@ -124,7 +121,7 @@ def test_chunked_oversized_end_to_end(worlds, rng):
 def test_chunked_compaction_matches_uncompacted(worlds, confs):
     robot, obstacle = worlds
     chunked = ChunkedMegaKernelChecker(
-        robot, obstacle, interpret=True, max_rob_tris=64, max_obs_tris=128
+        robot, obstacle, max_rob_tris=64, max_obs_tris=128
     )
     v0, c0 = chunked.check_valid(confs, chunk=16, compact=False)
     v1, c1 = chunked.check_valid(confs, chunk=16, compact=True)
@@ -136,16 +133,16 @@ def test_sharded_chunked_composition(worlds, confs):
     # Oversized meshes x multi-chip sharding: every chunk pair runs through
     # a batch-sharded checker on the 8-device CPU mesh, verdicts match the
     # float64 oracle and the single-chip chunked path.
-    from robocheck_tpu.parallel.sharding import make_mesh
+    from robocheck.parallel.sharding import make_mesh
 
     robot, obstacle = worlds
     mesh = make_mesh(8)
     sharded = ChunkedMegaKernelChecker(
-        robot, obstacle, interpret=True, max_rob_tris=64, max_obs_tris=128,
+        robot, obstacle, max_rob_tris=64, max_obs_tris=128,
         mesh=mesh,
     )
     plain = ChunkedMegaKernelChecker(
-        robot, obstacle, interpret=True, max_rob_tris=64, max_obs_tris=128
+        robot, obstacle, max_rob_tris=64, max_obs_tris=128
     )
     v0, c0 = plain.check_valid(confs)
     v1, c1 = sharded.check_valid(confs)
@@ -156,8 +153,8 @@ def test_sharded_chunked_composition(worlds, confs):
 
 
 def test_make_checker_mesh_dispatch(worlds):
-    from robocheck_tpu.parallel.sharding import ShardedChecker, make_mesh
+    from robocheck.parallel.sharding import ShardedChecker, make_mesh
 
     robot, obstacle = worlds
-    ck = make_checker(robot, obstacle, interpret=True, mesh=make_mesh(8))
+    ck = make_checker(robot, obstacle, mesh=make_mesh(8))
     assert isinstance(ck, ShardedChecker)

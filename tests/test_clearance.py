@@ -1,4 +1,4 @@
-"""TPU clearance engine (`planner/clearance.py`) correctness.
+"""Device clearance engine (`planner/clearance.py`) correctness.
 
 The engine must produce a SOUND lower bound on the true min posed-vertex to
 obstacle-surface distance (certificates consume only that direction), and
@@ -9,12 +9,12 @@ force, cross-checked against the native BVH when the library is built.
 import numpy as np
 import pytest
 
-from robocheck_tpu.io import assets
-from robocheck_tpu.io.obj import load_obj
-from robocheck_tpu.models.shapes import box, icosphere
-from robocheck_tpu.planner.ccd import subdivide_mesh
-from robocheck_tpu.planner.clearance import TpuClearanceEngine
-from robocheck_tpu.runtime import native
+from robocheck.io import assets
+from robocheck.io.obj import load_obj
+from robocheck.models.shapes import box, icosphere
+from robocheck.planner.ccd import subdivide_mesh
+from robocheck.planner.clearance import ClearanceEngine
+from robocheck.runtime import native
 
 
 def _truth(robot_verts, obstacle, confs):
@@ -22,8 +22,8 @@ def _truth(robot_verts, obstacle, confs):
     import jax
     import jax.numpy as jnp
 
-    from robocheck_tpu.ops.transform import rotation_matrices
-    from robocheck_tpu.planner.sdf import point_triangle_distance
+    from robocheck.ops.transform import rotation_matrices
+    from robocheck.planner.sdf import point_triangle_distance
 
     R = np.asarray(rotation_matrices(jnp.asarray(
         np.asarray(confs, np.float32))), np.float64)
@@ -49,7 +49,7 @@ def _rand_confs(rng, n, tmax):
 def test_soundness_and_tightness_synthetic():
     robot = icosphere(2, radius=0.4, name="r")
     obstacle = icosphere(1, radius=1.0, name="o")
-    eng = TpuClearanceEngine(robot.vertices, obstacle)
+    eng = ClearanceEngine(robot.vertices, obstacle)
     rng = np.random.default_rng(3)
     confs = _rand_confs(rng, 24, 2.5)
     d = eng.min_distances(confs)
@@ -65,7 +65,7 @@ def test_soundness_near_contact_alpha():
     # below one grid cell, translations chosen near the obstacle surface.
     robot = subdivide_mesh(load_obj(assets.alpha_robot_path()), 2)
     obstacle = load_obj(assets.alpha_obstacle_path())
-    eng = TpuClearanceEngine(robot.vertices, obstacle)
+    eng = ClearanceEngine(robot.vertices, obstacle)
     rng = np.random.default_rng(7)
     confs = _rand_confs(rng, 12, 1.0)
     confs[:, 0:3] += obstacle.aabb[:3] * 0.5 + obstacle.aabb[3:] * 0.5
@@ -84,13 +84,13 @@ def test_matches_native_bvh():
     # native f64 BVH answer from below within 2x the documented bound.
     robot = subdivide_mesh(load_obj(assets.alpha_robot_path()), 1)
     obstacle = load_obj(assets.alpha_obstacle_path())
-    eng = TpuClearanceEngine(robot.vertices, obstacle)
+    eng = ClearanceEngine(robot.vertices, obstacle)
     rng = np.random.default_rng(11)
     confs = _rand_confs(rng, 16, 30.0)
     d = eng.min_distances(confs)
     import jax.numpy as jnp
 
-    from robocheck_tpu.ops.transform import rotation_matrices
+    from robocheck.ops.transform import rotation_matrices
 
     R = np.asarray(rotation_matrices(jnp.asarray(confs)), np.float64)
     ov = np.ascontiguousarray(obstacle.vertices, np.float64)
@@ -110,7 +110,7 @@ def test_single_block_and_tiny_meshes():
     # num_blocks == 1 exercises the no-culling path.
     robot = box(extent=(0.2, 0.2, 0.2), name="r")
     obstacle = box(extent=(1.0, 1.0, 1.0), name="o")
-    eng = TpuClearanceEngine(robot.vertices, obstacle)
+    eng = ClearanceEngine(robot.vertices, obstacle)
     assert eng.num_blocks == 1
     confs = np.zeros((3, 6), np.float32)
     confs[:, 0] = [0.0, 1.5, 4.0]
@@ -123,7 +123,7 @@ def test_single_block_and_tiny_meshes():
 def test_sharded_engine_matches_unsharded():
     import jax
 
-    from robocheck_tpu.parallel.sharding import make_mesh
+    from robocheck.parallel.sharding import make_mesh
 
     if len(jax.devices()) < 2:
         pytest.skip("needs multiple (virtual) devices")
@@ -131,24 +131,24 @@ def test_sharded_engine_matches_unsharded():
     obstacle = icosphere(1, radius=1.0, name="o")
     rng = np.random.default_rng(5)
     confs = _rand_confs(rng, 16, 2.0)
-    eng0 = TpuClearanceEngine(robot.vertices, obstacle)
-    eng8 = TpuClearanceEngine(robot.vertices, obstacle,
+    eng0 = ClearanceEngine(robot.vertices, obstacle)
+    eng8 = ClearanceEngine(robot.vertices, obstacle,
                               mesh=make_mesh(len(jax.devices())))
     d0 = eng0.min_distances(confs)
     d8 = eng8.min_distances(confs)
     np.testing.assert_allclose(d0, d8, atol=1e-6)
 
 
-def test_certifier_tpu_backend_certifies_wall_gap():
-    # The exact TPU backend must certify a clearance the grid path cannot
+def test_certifier_device_backend_certifies_wall_gap():
+    # The exact device backend must certify a clearance the grid path cannot
     # (below e_g + r_cov), same scenario as test_ccd's native multires.
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-    from robocheck_tpu.planner.ccd import SweptCertifier, certify_multires
+    from robocheck.kernels.megakernel import MegaKernelChecker
+    from robocheck.planner.ccd import SweptCertifier, certify_multires
 
     robot = box(extent=(0.1, 0.1, 0.1), name="r")
     wall = box(extent=(0.4, 4.0, 4.0), name="wall")
-    checker = MegaKernelChecker(robot, wall, interpret=True)
-    cert = SweptCertifier(robot, wall, refine=2, exact=True, backend="tpu")
+    checker = MegaKernelChecker(robot, wall)
+    cert = SweptCertifier(robot, wall, refine=2, exact=True, backend="device")
     path = np.zeros((3, 6), np.float32)
     path[:, 0] = 0.05 + 0.2 + 0.08
     path[:, 1] = [-1.0, 0.0, 1.0]
@@ -158,7 +158,7 @@ def test_certifier_tpu_backend_certifies_wall_gap():
     tun = np.zeros((2, 6), np.float32)
     tun[0, 0], tun[1, 0] = -2.0, 2.0
     res2 = certify_multires(robot, wall, tun, checker,
-                            levels=((0, 6), (2, 8)), backend="tpu")
+                            levels=((0, 6), (2, 8)), backend="device")
     assert res2.collision and not res2.certified
 
 
@@ -166,7 +166,7 @@ def test_subdivide_vertices_matches_mesh_subdivision():
     # The exact certifiers sample subdivide_vertices' output; it must be
     # exactly the vertex array subdivide_mesh would have produced (same
     # set, same order) at every chained level.
-    from robocheck_tpu.planner.ccd import subdivide_mesh, subdivide_vertices
+    from robocheck.planner.ccd import subdivide_mesh, subdivide_vertices
 
     base = icosphere(1, radius=0.7, name="m")
     for lv in (1, 2, 3):
@@ -179,13 +179,13 @@ def test_subdivide_vertices_matches_mesh_subdivision():
 def test_batched_multires_matches_per_segment():
     # certify_multires batches a level's segments into one masked certify
     # call; the result must match certifying each segment independently.
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-    from robocheck_tpu.planner.ccd import SweptCertifier
+    from robocheck.kernels.megakernel import MegaKernelChecker
+    from robocheck.planner.ccd import SweptCertifier
 
     robot = box(extent=(0.1, 0.1, 0.1), name="r")
     wall = box(extent=(0.4, 4.0, 4.0), name="wall")
-    checker = MegaKernelChecker(robot, wall, interpret=True)
-    cert = SweptCertifier(robot, wall, refine=1, exact=True, backend="tpu")
+    checker = MegaKernelChecker(robot, wall)
+    cert = SweptCertifier(robot, wall, refine=1, exact=True, backend="device")
     segs = []
     for x in (-1.5, 1.5):
         s = np.zeros((3, 6), np.float32)
@@ -208,42 +208,42 @@ def test_batched_multires_matches_per_segment():
 @pytest.mark.skipif(not (native.available() and native.has_point_mesh_dist()),
                     reason="native library not built")
 def test_multires_backend_verdict_agreement():
-    # Randomized cross-backend stress: the tpu and native exact backends
+    # Randomized cross-backend stress: the device and native exact backends
     # must agree on certified/collision verdicts over random scenes (the
     # device engine's haircut can only cost extra subdivision depth, not
     # flip an outcome at these clearances).
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-    from robocheck_tpu.planner.ccd import certify_multires
+    from robocheck.kernels.megakernel import MegaKernelChecker
+    from robocheck.planner.ccd import certify_multires
 
     rng = np.random.default_rng(13)
     robot = box(extent=(0.12, 0.12, 0.12), name="r")
     for trial in range(3):
         wall = box(extent=(0.4, 3.0, 3.0), name="wall")
-        checker = MegaKernelChecker(robot, wall, interpret=True)
+        checker = MegaKernelChecker(robot, wall)
         # A clear pass-around path with randomized waypoint jitter.
         path = np.zeros((4, 6), np.float32)
         path[:, 0] = 0.26 + 0.06 + rng.uniform(0.0, 0.3)
         path[:, 1] = np.linspace(-1.2, 1.2, 4)
         path[1:3, 2] += rng.uniform(-0.3, 0.3, 2).astype(np.float32)
         results = {}
-        for backend in ("tpu", "native"):
+        for backend in ("device", "native"):
             res = certify_multires(robot, wall, path, checker,
                                    levels=((0, 5), (2, 7)), backend=backend)
             results[backend] = (res.certified, res.collision)
-        assert results["tpu"] == results["native"], (trial, results)
+        assert results["device"] == results["native"], (trial, results)
 
 
 def test_certify_step_mask_junctions_ignored():
     # Two independently-certifiable segments concatenated with a junction
     # step that passes straight through the wall: with the junction masked
     # out, the batch must certify; with it real, it must not.
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
-    from robocheck_tpu.planner.ccd import SweptCertifier
+    from robocheck.kernels.megakernel import MegaKernelChecker
+    from robocheck.planner.ccd import SweptCertifier
 
     robot = box(extent=(0.1, 0.1, 0.1), name="r")
     wall = box(extent=(0.4, 4.0, 4.0), name="wall")
-    checker = MegaKernelChecker(robot, wall, interpret=True)
-    cert = SweptCertifier(robot, wall, refine=1, exact=True, backend="tpu")
+    checker = MegaKernelChecker(robot, wall)
+    cert = SweptCertifier(robot, wall, refine=1, exact=True, backend="device")
     left = np.zeros((2, 6), np.float32)
     left[:, 0] = -1.5
     left[:, 1] = [-0.5, 0.5]

@@ -1,9 +1,9 @@
 """IO round-trip tests (.obj / .conf formats, `Utils_rai.cu:11-320`)."""
 import numpy as np
 
-from robocheck_tpu.core.types import Mesh
-from robocheck_tpu.io.conf import read_conf_file, write_conf_file
-from robocheck_tpu.io.obj import load_obj, save_obj
+from robocheck.core.types import Mesh
+from robocheck.io.conf import read_conf_file, write_conf_file
+from robocheck.io.obj import load_obj, save_obj
 
 
 def test_obj_roundtrip(tmp_path):

@@ -8,7 +8,7 @@ import time
 
 import numpy as np
 
-from robocheck_tpu.planner.knn import (
+from robocheck.planner.knn import (
     IncrementalNearest,
     conf_distance,
     conf_knn,

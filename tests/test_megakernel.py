@@ -1,5 +1,5 @@
-"""Mega-kernel tests (interpret mode on CPU; the real-hardware equivalence is
-exercised by bench.py's golden gate on TPU).
+"""Fused-kernel tests (interpret mode on the CPU; the compiled kernel's
+equivalence on the GPU is checked by chip_smoke.py's golden phases).
 
 The kernel must agree with the pure-XLA pipeline (same FP semantics) and with
 the float64 oracle on synthetic scenes small enough for interpret mode.
@@ -7,14 +7,14 @@ the float64 oracle on synthetic scenes small enough for interpret mode.
 import numpy as np
 import pytest
 
-from robocheck_tpu.kernels.megakernel import (
-    CONFS_PER_PROGRAM,
+from robocheck.kernels.megakernel import (
+    BATCH_MULTIPLE,
     MegaKernelChecker,
     MegaKernelPrep,
 )
-from robocheck_tpu.models.shapes import icosphere, tetrahedron
-from robocheck_tpu.ops.pipeline import CollisionWorld, PipelineConfig
-from robocheck_tpu.oracle import cpu_oracle
+from robocheck.models.shapes import icosphere, tetrahedron
+from robocheck.ops.pipeline import CollisionWorld, PipelineConfig
+from robocheck.oracle import cpu_oracle
 
 
 @pytest.fixture(scope="module")
@@ -43,7 +43,7 @@ def sphere_confs(rng=None):
 
 def test_kernel_matches_xla_pipeline(sphere_world, sphere_confs):
     robot, obstacle = sphere_world
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
+    mk = MegaKernelChecker(robot, obstacle)
     valid_k, cop_k, _, _ = mk.check(sphere_confs)
 
     world = CollisionWorld(
@@ -56,7 +56,7 @@ def test_kernel_matches_xla_pipeline(sphere_world, sphere_confs):
 
 def test_kernel_matches_oracle(sphere_world, sphere_confs):
     robot, obstacle = sphere_world
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
+    mk = MegaKernelChecker(robot, obstacle)
     valid_k, _, _, _ = mk.check(sphere_confs)
     valid_o = cpu_oracle.check_configs(robot, obstacle, sphere_confs)
     np.testing.assert_array_equal(valid_k, valid_o)
@@ -68,14 +68,14 @@ def test_kernel_tetrahedra_fixture():
     # (Coincident identical tetrahedra would NOT register: every pair is
     # coplanar or edge-sharing, which the TOL-band semantics skip — same as
     # the reference kernels.)
-    from robocheck_tpu.core.types import Mesh
+    from robocheck.core.types import Mesh
 
     robot = tetrahedron()
     obs_pts = np.array(
         [[1, 0.1, 0], [1.5, 1, 2.2], [1, 2.4, 0], [3.3, 2, 2]], np.float32
     )
     obstacle = Mesh(obs_pts, robot.triangles, "obs-tetra")
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
+    mk = MegaKernelChecker(robot, obstacle)
     confs = np.zeros((2, 6), np.float32)
     confs[1, 0] = 100.0
     valid, cop, npairs, broad = mk.check(confs)
@@ -96,11 +96,11 @@ def test_mismatched_scale_coplanar_precheck():
     # CENTERED at its own origin so that any pose whose translation lies on
     # an obstacle face plane straddles that plane for every rotation
     # (corners come in +/- pairs).
-    from robocheck_tpu.models.shapes import box
+    from robocheck.models.shapes import box
 
     robot = box(extent=(2.0, 2.0, 2.0))
     obstacle = tetrahedron(scale=1.0e4)
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
+    mk = MegaKernelChecker(robot, obstacle)
     world = CollisionWorld(
         robot, obstacle,
         PipelineConfig(batch_block=8, narrow_chunk=8, max_pairs=4096,
@@ -142,72 +142,153 @@ def test_mismatched_scale_coplanar_precheck():
 
 def test_morton_off_same_verdicts(sphere_world, sphere_confs):
     robot, obstacle = sphere_world
-    a = MegaKernelChecker(robot, obstacle, morton=True, interpret=True)
-    b = MegaKernelChecker(robot, obstacle, morton=False, interpret=True)
+    a = MegaKernelChecker(robot, obstacle, morton=True)
+    b = MegaKernelChecker(robot, obstacle, morton=False)
     va, *_ = a.check(sphere_confs)
     vb, *_ = b.check(sphere_confs)
     np.testing.assert_array_equal(va, vb)
 
 
 def test_packed_matches_stats_path(sphere_world, sphere_confs):
-    # The packed throughput flow (stats=False, verdict bits only) must
-    # agree bit for bit with the full counters path on the same batch.
-    # (This replaces the removed slab_sweep/contact_slabs variant-equality
-    # tests — both variants were measured losers and deleted; receipts in
-    # DESIGN.md "Measured roofline" and git history.)
+    # The packed throughput decode (verdict bits only) must agree bit for
+    # bit with the full output columns on the same batch.
     import jax.numpy as jnp
 
-    from robocheck_tpu.kernels import megakernel as mk
-    from robocheck_tpu.kernels.megakernel import CONFS_PER_PROGRAM
+    from robocheck.kernels import megakernel as mk
 
     robot, obstacle = sphere_world
-    ck = MegaKernelChecker(robot, obstacle, interpret=True)
-    n = (len(sphere_confs) + CONFS_PER_PROGRAM - 1) // CONFS_PER_PROGRAM
-    confs = np.zeros((n * CONFS_PER_PROGRAM, 6), np.float32)
+    ck = MegaKernelChecker(robot, obstacle)
+    n = -(-len(sphere_confs) // BATCH_MULTIPLE) * BATCH_MULTIPLE
+    confs = np.zeros((n, 6), np.float32)
     confs[:, 0] = 1.0e9
     confs[: len(sphere_confs)] = sphere_confs
 
     packed = np.asarray(mk._check_block_packed(
-        jnp.asarray(confs), ck._obs_mesh, ck._obs_grp, ck._rob_base,
-        ck._obs_t, ck._obs_aabb_rows,
-        num_rob_tiles=ck.prep.num_rob_tiles,
-        num_obs_tiles=ck.prep.num_obs_tiles,
-        interpret=True,
-    ))
+        jnp.asarray(confs), *ck._tables, **ck._static))
     stats = np.asarray(ck.check_block(jnp.asarray(confs)))
     np.testing.assert_array_equal(packed & 1, stats[:, 0].astype(np.uint8))
     np.testing.assert_array_equal(packed >> 1, stats[:, 1].astype(np.uint8))
 
 
 def test_prep_shapes(alpha_meshes):
+    from robocheck.kernels.megakernel import OBS_TILE, ROB_TILE
+
     robot, obstacle = alpha_meshes
     prep = MegaKernelPrep.build(robot, obstacle)
     assert prep.rob_base.shape == (16, 1024)
-    assert prep.obs_t.shape == (1024, 24)
-    assert prep.num_rob_tiles == 8
-    assert prep.num_obs_tiles == 8
+    assert prep.obs_fields.shape == (32, 1008 // OBS_TILE * OBS_TILE
+                                     + (1008 % OBS_TILE > 0) * OBS_TILE)
+    assert prep.num_rob_tiles == 1024 // ROB_TILE
+    assert prep.num_obs_tiles == -(-1008 // OBS_TILE)
+    # Group boxes come in a power-of-two row, empty past the mesh.
+    g = prep.obs_group_aabbs.shape[1]
+    assert g & (g - 1) == 0 and g >= prep.num_obs_tiles
+    assert np.all(prep.obs_group_aabbs[0:3, prep.num_obs_tiles:] == np.inf)
+    assert np.all(prep.obs_group_aabbs[3:6, prep.num_obs_tiles:] == -np.inf)
     # Padding robot triangles are flagged invalid.
     assert prep.rob_base[9, :1008].all()
     assert not prep.rob_base[9, 1008:].any()
-    # Padding obstacle AABBs are empty (never pass the gate).
-    assert np.all(prep.obs_t[1008:, 13:16] == np.inf)
-    assert np.all(prep.obs_t[1008:, 16:19] == -np.inf)
+    # Padding obstacle AABBs are empty (never pass a mask).
+    assert np.all(prep.obs_fields[13:16, 1008:] == np.inf)
+    assert np.all(prep.obs_fields[16:19, 1008:] == -np.inf)
 
 
-@pytest.mark.slow
-def test_multiword_gate_masks(rng):
-    # >16 obstacle tiles exercises the chunked gate-bitmask encoding
-    # (2200 triangles -> 18 tiles -> 2 words per robot tile).
-    from robocheck_tpu.models.shapes import triangle_soup
-    from robocheck_tpu.oracle import cpu_oracle
+@pytest.mark.parametrize("rob_tile,obs_tile", [(32, 64), (16, 16)])
+def test_multi_tile_gate_not_power_of_two(rng, rob_tile, obs_tile):
+    # A 300-triangle obstacle is 5 groups of 64 (or 19 of 16): group counts
+    # that are not powers of two, padded to 8 (or 32) empty group boxes, and
+    # a 320-triangle robot spans 10 (or 20) robot tiles — multi-tile sweeps
+    # on both sides, against the oracle and the XLA pipeline.
+    from robocheck.models.shapes import triangle_soup
 
-    obstacle = triangle_soup(rng, 2200, extent=1.0)
-    robot = icosphere(1, radius=0.2)
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
-    confs = rng.uniform(-1.5, 1.5, (8, 6)).astype(np.float32)
-    valid, *_ = mk.check(confs)
-    gt = cpu_oracle.check_configs(robot, obstacle, confs)
-    np.testing.assert_array_equal(valid, gt)
+    obstacle = triangle_soup(rng, 300, extent=1.0)
+    robot = icosphere(2, radius=0.3)  # 320 triangles
+    mk = MegaKernelChecker(robot, obstacle, rob_tile=rob_tile,
+                           obs_tile=obs_tile)
+    assert mk.prep.num_obs_tiles == -(-300 // obs_tile)
+    assert mk.prep.num_obs_tiles & (mk.prep.num_obs_tiles - 1)
+    assert mk.prep.num_rob_tiles > 1
+    confs = rng.uniform(-1.2, 1.2, (12, 6)).astype(np.float32)
+    valid, cop, pairs, _ = mk.check(confs)
+    np.testing.assert_array_equal(
+        valid, cpu_oracle.check_configs(robot, obstacle, confs))
+    world = CollisionWorld(
+        robot, obstacle,
+        PipelineConfig(batch_block=12, narrow_chunk=4, max_pairs=8192,
+                       resolve_coplanar=False),
+    )
+    v_x, res = world.check(confs, return_result=True)
+    np.testing.assert_array_equal(valid, v_x)
+    # Poses that visit every gated tile count every masked pair.
+    np.testing.assert_array_equal(pairs[valid], res.num_pairs[valid])
+
+
+def test_early_exit_counters(sphere_world):
+    # A colliding pose stops at its first hit: it visits fewer tiles than a
+    # valid pose of the same scene visits, and at least one ran the interval
+    # stage. Columns: 4 = mask tiles, 5 = visited tiles, 6 = interval tiles.
+    import jax.numpy as jnp
+
+    robot, obstacle = sphere_world
+    mk = MegaKernelChecker(robot, obstacle, rob_tile=16, obs_tile=16)
+    confs = np.zeros((BATCH_MULTIPLE, 6), np.float32)
+    confs[:, 0] = 1.0e9
+    confs[0, 0] = 1.0    # shells cross: collides
+    confs[1, 0] = 0.0    # concentric: valid, every gated tile visited
+    out = np.asarray(mk.check_block(jnp.asarray(confs)))
+    hit, clear = out[0], out[1]
+    assert hit[0] == 0 and clear[0] == 1
+    assert hit[3] == 1 and clear[3] == 1
+    assert hit[6] >= 1
+    assert 1 <= hit[5] < clear[5]
+    assert clear[4] <= clear[5]
+    # Far poses stop at the broad phase and visit nothing.
+    assert (out[2:, 3] == 0).all() and (out[2:, 4:7] == 0).all()
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_host_broad_phase_covers_kernel(sphere_world, axis):
+    # Poses whose robot box touches the obstacle box face on along one axis,
+    # from either side, where rounding decides the broad flag. The widened
+    # XLA pass must be set wherever the kernel's stage 1 hits, and two-phase
+    # `check` must report the kernel's own flag and verdicts.
+    import jax.numpy as jnp
+
+    from robocheck.kernels import megakernel as km
+
+    robot, obstacle = sphere_world
+    mk = MegaKernelChecker(robot, obstacle)
+    rng = np.random.default_rng(11 + axis)
+    confs = np.zeros((BATCH_MULTIPLE, 6), np.float32)
+    confs[:, 3:6] = rng.uniform(-np.pi, np.pi, (BATCH_MULTIPLE, 3))
+    lo, hi, _ = (np.asarray(a, np.float64) for a in km._posed_bounds(
+        jnp.asarray(confs), mk._corner_pts, mk._corner_mask))
+    obs = mk.prep.obs_mesh_aabb[0].astype(np.float64)
+    half = BATCH_MULTIPLE // 2
+    confs[:half, axis] = obs[3 + axis] - lo[:half, axis]
+    confs[half:, axis] = obs[axis] - hi[half:, axis]
+
+    v1, c1, p1, b1 = mk.check(confs, two_phase=False)
+    host = np.asarray(mk.broad_block(jnp.asarray(confs)))
+    assert host[b1].all()
+    v2, c2, p2, b2 = mk.check(confs, two_phase=True)
+    for a, b in ((v1, v2), (c1, c2), (p1, p2), (b1, b2)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        v1, cpu_oracle.check_configs(robot, obstacle, confs))
+
+
+def test_route_choice():
+    # One function picks the route: compiled on the GPU, interpreted on the
+    # CPU, refused anywhere else.
+    from types import SimpleNamespace
+
+    from robocheck.runtime.device import pallas_interpret
+
+    assert pallas_interpret([SimpleNamespace(platform="gpu")]) is False
+    assert pallas_interpret([SimpleNamespace(platform="cpu")]) is True
+    with pytest.raises(RuntimeError, match="not supported"):
+        pallas_interpret([SimpleNamespace(platform="rocm")])
 
 
 class TestCheckValid:
@@ -217,7 +298,7 @@ class TestCheckValid:
 
     def test_matches_check_and_oracle_mixed(self, sphere_world, sphere_confs):
         robot, obstacle = sphere_world
-        mk = MegaKernelChecker(robot, obstacle, interpret=True)
+        mk = MegaKernelChecker(robot, obstacle)
         v_stream, c_stream = mk.check_valid(sphere_confs)
         v_check, c_check, _, _ = mk.check(sphere_confs)
         np.testing.assert_array_equal(v_stream, v_check)
@@ -229,7 +310,7 @@ class TestCheckValid:
         # chunk=8 over 19 configs: two full chunks + a padded tail, and the
         # multi-chunk device-side concatenation.
         robot, obstacle = sphere_world
-        mk = MegaKernelChecker(robot, obstacle, interpret=True)
+        mk = MegaKernelChecker(robot, obstacle)
         rng = np.random.default_rng(3)
         confs = rng.uniform(-2.0, 2.0, (19, 6)).astype(np.float32)
         v_stream, c_stream = mk.check_valid(confs, chunk=8)
@@ -239,7 +320,7 @@ class TestCheckValid:
 
     def test_nonfinite_rows(self, sphere_world):
         robot, obstacle = sphere_world
-        mk = MegaKernelChecker(robot, obstacle, interpret=True)
+        mk = MegaKernelChecker(robot, obstacle)
         confs = np.zeros((6, 6), np.float32)
         confs[0, 0] = np.nan
         confs[2, 3] = np.inf
@@ -252,7 +333,7 @@ class TestCheckValid:
 
     def test_all_miss_and_all_hit_chunks(self, sphere_world):
         robot, obstacle = sphere_world
-        mk = MegaKernelChecker(robot, obstacle, interpret=True)
+        mk = MegaKernelChecker(robot, obstacle)
         far = np.zeros((8, 6), np.float32)
         far[:, 0] = 1000.0
         near = np.zeros((8, 6), np.float32)
@@ -263,10 +344,10 @@ class TestCheckValid:
         assert not v[8:].any()
 
     def test_alpha_golden_slice(self, alpha_meshes, hard10k):
-        # Real meshes, tagged goldens (256-conf slice; full files run on TPU
-        # via bench.py and in the slow tier).
+        # Real meshes, tagged goldens (256-conf slice; the full files run
+        # on the GPU in chip_smoke.py and in the slow tier).
         robot, obstacle = alpha_meshes
-        mk = MegaKernelChecker(robot, obstacle, interpret=True)
+        mk = MegaKernelChecker(robot, obstacle)
         confs = hard10k.confs[:256]
         v, _ = mk.check_valid(confs, chunk=64)
         np.testing.assert_array_equal(v, hard10k.valid[:256])
@@ -274,11 +355,11 @@ class TestCheckValid:
 
 def test_batch_padding_roundtrip(sphere_world):
     robot, obstacle = sphere_world
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
-    confs = np.zeros((CONFS_PER_PROGRAM + 3, 6), np.float32)
+    mk = MegaKernelChecker(robot, obstacle)
+    confs = np.zeros((BATCH_MULTIPLE + 3, 6), np.float32)
     confs[:, 0] = 100.0  # all far away
     valid, *_ = mk.check(confs)
-    assert valid.shape == (CONFS_PER_PROGRAM + 3,)
+    assert valid.shape == (BATCH_MULTIPLE + 3,)
     assert valid.all()
 
 
@@ -300,20 +381,20 @@ class TestCoplanarResolution:
                    [-9.889383, -480.09338, -190.76962]], dtype=np.float32)
 
     def _world(self):
-        from robocheck_tpu.core.types import Mesh
+        from robocheck.core.types import Mesh
 
         tris = np.array([[0, 1, 2]], np.int32)
         return Mesh(self.RT, tris, name="r"), Mesh(self.OT, tris, name="o")
 
     def test_flagged_then_resolved_colliding(self):
         robot, obstacle = self._world()
-        ck = MegaKernelChecker(robot, obstacle, interpret=True)
+        ck = MegaKernelChecker(robot, obstacle)
         confs = np.zeros((1, 6), np.float32)
         valid, cop = ck.check_valid(confs)
         assert valid[0] and cop[0], "fixture must be flagged-but-unresolved"
         resolved = ck.check_valid_resolved(confs)
         assert not resolved[0], "exact geometry collides"
-        from robocheck_tpu.oracle import check_configs
+        from robocheck.oracle import check_configs
 
         assert not check_configs(robot, obstacle, confs)[0]
 
@@ -321,7 +402,7 @@ class TestCoplanarResolution:
         # Far-away configs: nothing flagged, resolved == raw (and the helper
         # returns the input array untouched).
         robot, obstacle = self._world()
-        ck = MegaKernelChecker(robot, obstacle, interpret=True)
+        ck = MegaKernelChecker(robot, obstacle)
         confs = np.zeros((4, 6), np.float32)
         confs[:, 0] = 1e5
         raw, cop = ck.check_valid(confs)
@@ -330,7 +411,7 @@ class TestCoplanarResolution:
 
     def test_invalid_stays_invalid(self):
         # resolve_coplanar must never overturn a collision verdict.
-        from robocheck_tpu.oracle import resolve_coplanar
+        from robocheck.oracle import resolve_coplanar
 
         robot, obstacle = self._world()
         valid = np.array([False, True])
@@ -344,7 +425,7 @@ def test_presort_matches_plain(sphere_world):
     # Broad-phase presort + never-dispatched all-miss tail must be verdict-
     # identical to the plain streamed path, with order restored.
     robot, obstacle = sphere_world
-    mk = MegaKernelChecker(robot, obstacle, interpret=True)
+    mk = MegaKernelChecker(robot, obstacle)
     rng = np.random.default_rng(3)
     confs = np.zeros((40, 6), np.float32)
     confs[:, 0] = rng.permutation(

@@ -9,8 +9,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from robocheck_tpu.core.constants import TOL
-from robocheck_tpu.ops import narrow as nar
+from robocheck.core.constants import TOL
+from robocheck.ops import narrow as nar
 
 
 def T(*pts):

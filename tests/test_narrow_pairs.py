@@ -8,8 +8,8 @@ randomized differential sweep against the independent float64 oracle.
 import numpy as np
 import jax.numpy as jnp
 
-from robocheck_tpu.ops import narrow as nar
-from robocheck_tpu.oracle import cpu_oracle
+from robocheck.ops import narrow as nar
+from robocheck.oracle import cpu_oracle
 
 
 TETRA_TRIS = np.array([[0, 1, 2], [0, 1, 3], [0, 2, 3], [1, 2, 3]], np.int32)
@@ -85,7 +85,7 @@ def test_degenerate_padding_triangle_never_hits():
 
 
 def test_differential_vs_float64_oracle(rng):
-    """Random triangle soup: the TPU-semantics predicate must agree with the
+    """Random triangle soup: the TOL-band predicate must agree with the
     independent float64 oracle away from its tolerance bands."""
     n = 4096
     t1 = rng.uniform(-1, 1, size=(n, 3, 3)).astype(np.float32)

@@ -3,12 +3,12 @@ the native oracle must agree with the NumPy float64 oracle."""
 import numpy as np
 import pytest
 
-from robocheck_tpu.io import assets
-from robocheck_tpu.io.conf import read_conf_file
-from robocheck_tpu.io.obj import load_obj
-from robocheck_tpu.models.shapes import icosphere
-from robocheck_tpu.oracle import cpu_oracle
-from robocheck_tpu.runtime import native
+from robocheck.io import assets
+from robocheck.io.conf import read_conf_file
+from robocheck.io.obj import load_obj
+from robocheck.models.shapes import icosphere
+from robocheck.oracle import cpu_oracle
+from robocheck.runtime import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built (make -C native)"
@@ -59,7 +59,7 @@ def test_native_oracle_bvh_deep_traversal(rng):
     # A large irregular triangle soup forces real BVH traversal (many levels,
     # partial leaves, empty-overlap prunes). Verdicts must equal the numpy
     # oracle's linear-scan semantics exactly.
-    from robocheck_tpu.models.shapes import triangle_soup
+    from robocheck.models.shapes import triangle_soup
 
     obstacle = triangle_soup(rng, 3000, extent=2.0)
     robot = icosphere(1, radius=0.15)

@@ -4,7 +4,7 @@ verdicts must reproduce FCL's tags."""
 import numpy as np
 import pytest
 
-from robocheck_tpu.oracle import cpu_oracle as oc
+from robocheck.oracle import cpu_oracle as oc
 
 
 def test_tri_tri_basic():

@@ -4,7 +4,7 @@ triage, `test/full-integration-test.cu:695-724`)."""
 import numpy as np
 import pytest
 
-from robocheck_tpu.ops.pipeline import CollisionWorld, PipelineConfig
+from robocheck.ops.pipeline import CollisionWorld, PipelineConfig
 
 
 @pytest.fixture(scope="module")
@@ -72,8 +72,8 @@ def test_samples10k_file_is_untagged(samples10k):
     # The reference shipped 10,000samples.conf with an FCL header count
     # (7296 valid / 2704 invalid) but never wrote the verdicts back to the
     # rows — every tag is 0. Document the fact so nobody "fixes" a verdict
-    # diff against these tags. (On TPU hardware the mega-kernel reproduces
-    # the header's 7296 exactly; see README results.)
+    # diff against these tags. (The checkers reproduce the header's 7296
+    # exactly.)
     assert (samples10k.header_valid, samples10k.header_invalid) == (7296, 2704)
     assert samples10k.num_valid == 0
     assert samples10k.tags_match_header is False
@@ -82,7 +82,7 @@ def test_samples10k_file_is_untagged(samples10k):
 def test_samples10k_slice_vs_oracle(world, samples10k):
     # Row tags are unusable (above); the float64 oracle is the ground truth
     # for this dataset. Differential check on a slice.
-    from robocheck_tpu.oracle import check_configs
+    from robocheck.oracle import check_configs
 
     n = 64
     confs = samples10k.confs[:n]

@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from robocheck_tpu.models.shapes import box, icosphere
-from robocheck_tpu.planner.prm import PRMConfig, PRMPlanner
-from robocheck_tpu.planner.sdf import (
+from robocheck.models.shapes import box, icosphere
+from robocheck.planner.prm import PRMConfig, PRMPlanner
+from robocheck.planner.sdf import (
     build_distance_grid,
     point_triangle_distance,
 )
-from robocheck_tpu.planner.trajopt import TrajectoryOptimizer, TrajOptConfig
+from robocheck.planner.trajopt import TrajectoryOptimizer, TrajOptConfig
 
 
 class TestPointTriangleDistance:
@@ -76,7 +76,6 @@ class TestTrajOpt:
             TrajOptConfig(num_waypoints=16, iters_per_round=200,
                           max_rounds=6, margin=0.35, grid_resolution=40,
                           num_surface_samples=64),
-            interpret=True,
         )
         start = np.array([-3, 0, 0, 0, 0, 0], np.float32)
         goal = np.array([3, 0, 0, 0, 0, 0], np.float32)
@@ -104,14 +103,13 @@ class TestTrajOpt:
             TrajOptConfig(num_waypoints=12, iters_per_round=60,
                           max_rounds=2, margin=0.3, grid_resolution=32,
                           num_surface_samples=32),
-            interpret=True,
         )
         start = np.array([-3, 0, 0, 0, 0, 0], np.float32)
         goal = np.array([3, 0, 0, 0, 0, 0], np.float32)
         res = opt.plan(start, goal)
         # Whatever it returns, the certificate must be honest: verify the
         # densified path with the checker directly.
-        from robocheck_tpu.planner.trajopt import densify
+        from robocheck.planner.trajopt import densify
 
         dense, _ = densify(res.trajectory, 0.3)
         dvalid, *_ = opt.checker.check(dense)
@@ -121,7 +119,7 @@ class TestTrajOpt:
 @pytest.mark.slow
 class TestSQP:
     def test_sqp_around_sphere(self):
-        from robocheck_tpu.planner.sqp import SQPConfig, SQPOptimizer
+        from robocheck.planner.sqp import SQPConfig, SQPOptimizer
 
         robot = icosphere(1, radius=0.3, name="robot")
         obstacle = icosphere(2, radius=1.0, name="ball")
@@ -129,7 +127,6 @@ class TestSQP:
             robot, obstacle,
             SQPConfig(num_waypoints=16, max_outer=15, top_k=4, margin=0.35,
                       grid_resolution=40, num_surface_samples=64),
-            interpret=True,
         )
         start = np.array([-3, 0, 0, 0, 0, 0], np.float32)
         goal = np.array([3, 0, 0, 0, 0, 0], np.float32)
@@ -141,8 +138,8 @@ class TestSQP:
         assert np.abs(res.trajectory[4:-4, 1:3]).max() > 0.5
 
     def test_sqp_checkpoint_resume(self, tmp_path):
-        from robocheck_tpu.planner.sqp import SQPConfig, SQPOptimizer
-        from robocheck_tpu.runtime import checkpoint
+        from robocheck.planner.sqp import SQPConfig, SQPOptimizer
+        from robocheck.runtime import checkpoint
 
         robot = icosphere(1, radius=0.3, name="robot")
         obstacle = icosphere(2, radius=1.0, name="ball")
@@ -151,7 +148,7 @@ class TestSQP:
                         grid_resolution=40, num_surface_samples=64,
                         max_penalty_rounds=1, checkpoint_path=path,
                         checkpoint_every=2)
-        opt = SQPOptimizer(robot, obstacle, cfg, interpret=True)
+        opt = SQPOptimizer(robot, obstacle, cfg)
         start = np.array([-3, 0, 0, 0, 0, 0], np.float32)
         goal = np.array([3, 0, 0, 0, 0, 0], np.float32)
         opt.plan(start, goal)
@@ -167,8 +164,8 @@ class TestSQP:
 @pytest.mark.slow
 class TestPipeline:
     def test_prm_seeded_optimization_through_wall(self):
-        from robocheck_tpu.planner import plan_and_smooth
-        from robocheck_tpu.planner.prm import PRMConfig
+        from robocheck.planner import plan_and_smooth
+        from robocheck.planner.prm import PRMConfig
 
         robot = icosphere(1, radius=0.3, name="robot")
         obstacle = box(extent=(0.5, 3.0, 3.0), name="wall")
@@ -182,7 +179,6 @@ class TestPipeline:
                                      max_rounds=4, margin=0.25,
                                      grid_resolution=32,
                                      num_surface_samples=32),
-            interpret=True,
         )
         assert res is not None, "PRM found no path"
         assert res.certified
@@ -197,7 +193,6 @@ class TestPRM:
             robot, obstacle,
             PRMConfig(num_samples=256, k_neighbors=8, edge_resolution=8),
             sample_box=((-4, 4), (-3, 3), (-3, 3)),
-            interpret=True,
         )
         start = np.array([-3, 0, 0, 0, 0, 0], np.float32)
         goal = np.array([3, 0, 0, 0, 0, 0], np.float32)
@@ -216,7 +211,7 @@ class TestPlannerCoplanarCertify:
         # fixture of tests/test_megakernel.py::TestCoplanarResolution) must
         # NOT be certified: the raw kernel only flags the pair; the planner
         # path resolves it in float64 and sees the collision.
-        from robocheck_tpu.core.types import Mesh
+        from robocheck.core.types import Mesh
         from tests.test_megakernel import TestCoplanarResolution as F
 
         tris = np.array([[0, 1, 2]], np.int32)
@@ -226,7 +221,6 @@ class TestPlannerCoplanarCertify:
             robot, obstacle,
             TrajOptConfig(num_waypoints=4, iters_per_round=1, max_rounds=1,
                           grid_resolution=8, num_surface_samples=8),
-            interpret=True,
         )
         raw, cop = opt.checker.check_valid(np.zeros((1, 6), np.float32))
         assert raw[0] and cop[0]  # the raw path would have certified this
@@ -241,8 +235,8 @@ class TestRRTConnect:
         # Two wall slabs with a narrow gap between them: the passage is
         # ~1.2x the robot diameter — uniform PRM at small sample counts
         # rarely threads it, boundary-biased RRT-Connect should.
-        from robocheck_tpu.core.types import Mesh
-        from robocheck_tpu.models.shapes import box, icosphere
+        from robocheck.core.types import Mesh
+        from robocheck.models.shapes import box, icosphere
 
         robot = icosphere(1, radius=0.25, name="robot")
         top = box(extent=(0.4, 3.0, 2.6), center=(0.0, 0.0, 1.65))
@@ -251,14 +245,13 @@ class TestRRTConnect:
         return robot, wall
 
     def test_threads_narrow_gap(self):
-        from robocheck_tpu.planner.rrt import RRTConfig, RRTConnectPlanner
-        from robocheck_tpu.planner.trajopt import densify
+        from robocheck.planner.rrt import RRTConfig, RRTConnectPlanner
+        from robocheck.planner.trajopt import densify
 
         robot, wall = self._gap_world()
         planner = RRTConnectPlanner(
             robot, wall,
             RRTConfig(max_iters=30, batch=64, edge_resolution=8, seed=2),
-            interpret=True,
         )
         start = np.array([-2.5, 0, 0, 0, 0, 0], np.float32)
         goal = np.array([2.5, 0, 0, 0, 0, 0], np.float32)
@@ -274,11 +267,11 @@ class TestRRTConnect:
         assert dv.all(), f"{int((~dv).sum())}/{len(dv)} densified collide"
 
     def test_invalid_endpoint_reports_no_path(self):
-        from robocheck_tpu.planner.rrt import RRTConfig, RRTConnectPlanner
+        from robocheck.planner.rrt import RRTConfig, RRTConnectPlanner
 
         robot, wall = self._gap_world()
         planner = RRTConnectPlanner(
-            robot, wall, RRTConfig(max_iters=2, batch=16), interpret=True,
+            robot, wall, RRTConfig(max_iters=2, batch=16),
         )
         inside = np.array([0.0, 0.0, 1.65, 0, 0, 0], np.float32)  # in slab
         goal = np.array([2.5, 0, 0, 0, 0, 0], np.float32)
@@ -295,9 +288,9 @@ class TestShardedPlanner:
     def test_sqp_sharded_certifies_and_matches(self):
         import jax
 
-        from robocheck_tpu.models.shapes import box, icosphere
-        from robocheck_tpu.parallel.sharding import ShardedChecker, make_mesh
-        from robocheck_tpu.planner.sqp import SQPConfig, SQPOptimizer
+        from robocheck.models.shapes import box, icosphere
+        from robocheck.parallel.sharding import ShardedChecker, make_mesh
+        from robocheck.planner.sqp import SQPConfig, SQPOptimizer
 
         if len(jax.devices()) < 2:
             import pytest
@@ -312,7 +305,7 @@ class TestShardedPlanner:
         goal = np.array([2.0, 0, 0, 0, 0, 0], np.float32)
 
         mesh = make_mesh()
-        opt_s = SQPOptimizer(robot, obstacle, cfg, interpret=True, mesh=mesh)
+        opt_s = SQPOptimizer(robot, obstacle, cfg, mesh=mesh)
         assert isinstance(opt_s.checker, ShardedChecker)
         res_s = opt_s.plan(start, goal)
         assert res_s.certified
@@ -322,7 +315,7 @@ class TestShardedPlanner:
         # (XLA fuses the per-shard vmap differently from the full-batch
         # vmap, so values agree to f32 roundoff, not bit-exactly — unlike
         # the collision kernel, whose sharded twin IS bit-exact).
-        opt_1 = SQPOptimizer(robot, obstacle, cfg, interpret=True,
+        opt_1 = SQPOptimizer(robot, obstacle, cfg,
                              grid=opt_s.grid)
         q = jnp.asarray(res_s.trajectory)
         g_s, J_s, tot_s = opt_s._constraint_blocks(q)
@@ -338,8 +331,8 @@ def test_unwrap_path_matches_shortest_arc():
     # A path crossing the +/-pi seam: linear interpolation of the raw
     # waypoints takes the LONG way (what densify would check), while the
     # planner validated the short way. unwrap_path makes them identical.
-    from robocheck_tpu.planner.prm import _interpolate, unwrap_path
-    from robocheck_tpu.planner.trajopt import densify
+    from robocheck.planner.prm import _interpolate, unwrap_path
+    from robocheck.planner.trajopt import densify
 
     path = np.zeros((3, 6), np.float32)
     path[0, 3] = 3.1

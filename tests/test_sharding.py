@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from robocheck_tpu.models.shapes import icosphere
-from robocheck_tpu.parallel.sharding import ShardedChecker, make_mesh
-from robocheck_tpu.runtime.distributed import shard_bounds
+from robocheck.models.shapes import icosphere
+from robocheck.parallel.sharding import ShardedChecker, make_mesh
+from robocheck.runtime.distributed import shard_bounds
 
 
 @pytest.fixture(scope="module")
@@ -30,8 +30,8 @@ def test_eight_devices_available():
 
 def test_sharded_matches_single_device(sphere_world, confs):
     robot, obstacle = sphere_world
-    full = ShardedChecker(robot, obstacle, mesh=make_mesh(8), interpret=True)
-    single = ShardedChecker(robot, obstacle, mesh=make_mesh(1), interpret=True)
+    full = ShardedChecker(robot, obstacle, mesh=make_mesh(8))
+    single = ShardedChecker(robot, obstacle, mesh=make_mesh(1))
     v8, c8, n8, b8 = full.check(confs)
     v1, c1, n1, b1 = single.check(confs)
     np.testing.assert_array_equal(v8, v1)
@@ -40,7 +40,7 @@ def test_sharded_matches_single_device(sphere_world, confs):
 
 def test_psum_totals(sphere_world, confs):
     robot, obstacle = sphere_world
-    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8), interpret=True)
+    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8))
     # check_block requires a mesh-and-program-divisible batch.
     reps = -(-checker._block_multiple) // len(confs) + 1
     block = np.tile(confs, (reps, 1))[: checker._block_multiple]
@@ -55,7 +55,7 @@ def test_psum_totals(sphere_world, confs):
 
 def test_batch_not_divisible(sphere_world, confs):
     robot, obstacle = sphere_world
-    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8), interpret=True)
+    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8))
     v, *_ = checker.check(confs[:37])
     assert v.shape == (37,)
 
@@ -63,12 +63,11 @@ def test_batch_not_divisible(sphere_world, confs):
 def test_sharded_check_valid_matches_single_chip(sphere_world, confs):
     # The streamed packed path must agree with the single-chip
     # MegaKernelChecker (same kernel, same FP order) on every verdict.
-    from robocheck_tpu.kernels.megakernel import MegaKernelChecker
+    from robocheck.kernels.megakernel import MegaKernelChecker
 
     robot, obstacle = sphere_world
-    sharded = ShardedChecker(robot, obstacle, mesh=make_mesh(8),
-                             interpret=True)
-    single = MegaKernelChecker(robot, obstacle, interpret=True)
+    sharded = ShardedChecker(robot, obstacle, mesh=make_mesh(8))
+    single = MegaKernelChecker(robot, obstacle)
     v8, c8 = sharded.check_valid(confs)
     v1, c1 = single.check_valid(confs)
     np.testing.assert_array_equal(v8, v1)
@@ -77,8 +76,7 @@ def test_sharded_check_valid_matches_single_chip(sphere_world, confs):
 
 def test_sharded_check_valid_chunked_nondivisible(sphere_world, confs):
     robot, obstacle = sphere_world
-    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8),
-                             interpret=True)
+    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8))
     # 55 configs, chunk=64 (one block multiple): padded tail rows must not
     # affect verdicts; multi-chunk concat exercised with chunk=128 on 200.
     v, c = checker.check_valid(confs[:55], chunk=64)
@@ -92,8 +90,7 @@ def test_sharded_check_valid_chunked_nondivisible(sphere_world, confs):
 
 def test_sharded_check_valid_nonfinite(sphere_world, confs):
     robot, obstacle = sphere_world
-    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8),
-                             interpret=True)
+    checker = ShardedChecker(robot, obstacle, mesh=make_mesh(8))
     bad = confs[:16].copy()
     bad[3, 0] = np.nan
     bad[7, 5] = np.inf

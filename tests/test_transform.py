@@ -4,8 +4,8 @@ standing in for FCL)."""
 import numpy as np
 import jax.numpy as jnp
 
-from robocheck_tpu.ops import transform as tf
-from robocheck_tpu.oracle.cpu_oracle import transform_vertices_f64
+from robocheck.ops import transform as tf
+from robocheck.oracle.cpu_oracle import transform_vertices_f64
 
 
 def test_identity_configuration():
